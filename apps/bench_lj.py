@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """SSSP + CC + BFS on the LiveJournal-scale replica (one import, the
-small-graph batch protocols from bench.py's real-graph block, rows to
-BENCH_LJ.json). This is the BASELINE "SSSP + CC on soc-LiveJournal, single
+small-graph batch protocols from bench.py's real-graph block, one JSON line
+per row on stdout). This is the BASELINE "SSSP + CC on soc-LiveJournal, single
 chip" config run on `lj-replica` (apps/make_lj_replica.py — zero egress
 blocks the real download; same scale, Chung-Lu degree mix)."""
 from __future__ import annotations
@@ -13,7 +13,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def log(msg):
@@ -24,12 +23,12 @@ def main():
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from vectorgraphlibrary_tpu.runtime.cache import enable_persistent_cache
+    from vectorgraphlibrary.runtime.cache import enable_persistent_cache
     enable_persistent_cache()
-    from vectorgraphlibrary_tpu.io import corpus
-    from vectorgraphlibrary_tpu.graph.device import import_graph
-    from vectorgraphlibrary_tpu.graph.edges import build_edge_array_from_host
-    from vectorgraphlibrary_tpu.models import bfs, sssp, cc, common
+    from vectorgraphlibrary.io import corpus
+    from vectorgraphlibrary.graph.device import import_graph
+    from vectorgraphlibrary.graph.edges import build_edge_array_from_host
+    from vectorgraphlibrary.models import bfs, sssp, cc, common
 
     name = "lj-replica"
     ec = corpus.load(name, fetch=False)
@@ -44,11 +43,8 @@ def main():
         rec.update(extra)
         metrics.append(rec)
         print(json.dumps(rec), flush=True)
-        with open(os.path.join(REPO, "BENCH_LJ.json"), "w") as f:
-            json.dump(metrics, f, indent=1)
 
-    def sync(x):
-        return float(np.asarray(x.ravel()[0]))
+    sync = jax.block_until_ready
 
     t0 = time.time()
     log(f"importing {name}: |V|={ec.vertices_count:,} |E|={ec.edges_count:,}")

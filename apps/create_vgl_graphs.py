@@ -6,9 +6,9 @@ import sys
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from vectorgraphlibrary_tpu.io import generation
-from vectorgraphlibrary_tpu.io.edges_container import EdgesContainer
-from vectorgraphlibrary_tpu.io.konect import import_konect
+from vectorgraphlibrary.io import generation
+from vectorgraphlibrary.io.edges_container import EdgesContainer
+from vectorgraphlibrary.io.konect import import_konect
 
 
 def main():
@@ -29,8 +29,8 @@ def main():
     ec.save_to_binary_file(a.file)
     print(f"saved |V|={ec.vertices_count} |E|={ec.edges_count} -> {a.file}")
     if a.preprocess:
-        from vectorgraphlibrary_tpu.graph.device import import_graph
-        from vectorgraphlibrary_tpu.graph.persistence import \
+        from vectorgraphlibrary.graph.device import import_graph
+        from vectorgraphlibrary.graph.persistence import \
             save_graph_to_binary_file
         g = import_graph(ec)
         save_graph_to_binary_file(g, a.preprocess)

@@ -6,7 +6,7 @@ site-packages: jax, torch, transformers, scipy, ...).
 Software call graphs are a standard real-graph category (KONECT carries
 several); this one is ~an order of magnitude larger than the bundled import
 network (data/pydeps.el.gz), so traversal benchmarks on it measure kernels
-rather than per-dispatch latency (VERDICT r3 #7).
+rather than per-dispatch latency.
 
 Construction (deterministic: files walked sorted, ids assigned by sorted
 qualified name):
@@ -125,7 +125,7 @@ class CallCollector(ast.NodeVisitor):
 def main():
     out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "vectorgraphlibrary_tpu", "data", "pycalls.el.gz")
+        "vectorgraphlibrary", "data", "pycalls.el.gz")
 
     sys.setrecursionlimit(50_000)          # deep generated ASTs in site-pkgs
     defs = {}                              # full qualname -> simple name

@@ -51,8 +51,8 @@ def weights() -> np.ndarray:
 
 
 def main():
-    from vectorgraphlibrary_tpu.io.edges_container import EdgesContainer
-    from vectorgraphlibrary_tpu.io import corpus
+    from vectorgraphlibrary.io.edges_container import EdgesContainer
+    from vectorgraphlibrary.io import corpus
     out = os.path.join(corpus.graph_dir(), "lj-replica.el_container")
     if os.path.exists(out):
         log(f"already built: {out}")

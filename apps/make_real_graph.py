@@ -13,7 +13,7 @@ wrappers) with in-degrees in the thousands.
 Determinism: files are walked in sorted order and module ids are assigned by
 sorted module name, so re-running on the same installation reproduces the
 snapshot byte-for-byte. The generated edge list is committed under
-vectorgraphlibrary_tpu/data/ as the zero-egress corpus fallback
+vectorgraphlibrary/data/ as the zero-egress corpus fallback
 (io/corpus.py bundled_graph); this script documents its provenance and
 re-creates it.
 
@@ -151,5 +151,5 @@ def main(out_path: str):
 if __name__ == "__main__":
     out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "vectorgraphlibrary_tpu", "data", "pydeps.el.gz")
+        "vectorgraphlibrary", "data", "pydeps.el.gz")
     main(out)

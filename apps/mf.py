@@ -4,8 +4,8 @@ import sys
 import numpy as np
 
 from app_common import run_app          # first: puts the repo on sys.path
-import vectorgraphlibrary_tpu as vgl
-from vectorgraphlibrary_tpu.models import mf
+import vectorgraphlibrary as vgl
+from vectorgraphlibrary.models import mf
 
 
 _PREP_CACHE = {}
@@ -13,7 +13,7 @@ _PREP_CACHE = {}
 
 def _prep(ec, cfg):
     # cache per (container, seed): mf.build_residual memoizes the imported
-    # 2e-arc routed graph ON the prepared container, so rounds must reuse it
+    # 2e-arc graph ON the prepared container, so rounds must reuse it
     key = (id(ec), cfg.seed)
     if key not in _PREP_CACHE:
         dedup = ec.remove_self_loops_and_duplicates()

@@ -2,9 +2,9 @@
 import sys
 
 from app_common import run_app
-import vectorgraphlibrary_tpu as vgl
-from vectorgraphlibrary_tpu.models import pr
-from vectorgraphlibrary_tpu.utils import verify
+import vectorgraphlibrary as vgl
+from vectorgraphlibrary.models import pr
+from vectorgraphlibrary.utils import verify
 
 
 # fixed iteration count on BOTH the device run and the oracle: the device
@@ -20,7 +20,7 @@ def run_round(ec, graph, weights, source, cfg):
 
 
 def check_round(ec, graph, weights, source, result, cfg):
-    from vectorgraphlibrary_tpu.config import TraversalDirection
+    from vectorgraphlibrary.config import TraversalDirection
     arr = vgl.VertexArray(values=result, direction=TraversalDirection.GATHER)
     got = vgl.as_original_numpy(arr, graph)
     want = pr.seq_page_rank(ec, max_iterations=_PR_ITERS, use_convergence=False)

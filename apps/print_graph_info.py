@@ -3,8 +3,8 @@ import sys
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from vectorgraphlibrary_tpu.runtime import cli, runtime
-from vectorgraphlibrary_tpu.utils import analytics
+from vectorgraphlibrary.runtime import cli, runtime
+from vectorgraphlibrary.utils import analytics
 
 
 def main():

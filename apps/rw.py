@@ -4,7 +4,7 @@ import sys
 import numpy as np
 
 from app_common import run_app
-from vectorgraphlibrary_tpu.models import rw
+from vectorgraphlibrary.models import rw
 
 
 def run_round(ec, graph, weights, source, cfg):

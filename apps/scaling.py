@@ -38,10 +38,10 @@ def main():
         jax.config.update("jax_platforms", "cpu")
 
     import jax.numpy as jnp
-    from vectorgraphlibrary_tpu.io import generation
-    from vectorgraphlibrary_tpu.parallel import sharded
-    from vectorgraphlibrary_tpu.parallel.shard_build import import_sharded
-    from vectorgraphlibrary_tpu.parallel.mesh import make_mesh
+    from vectorgraphlibrary.io import generation
+    from vectorgraphlibrary.parallel import sharded
+    from vectorgraphlibrary.parallel.shard_build import import_sharded
+    from vectorgraphlibrary.parallel.mesh import make_mesh
 
     counts = [int(x) for x in args.devices.split(",")]
     avail = len(jax.devices())
@@ -54,7 +54,7 @@ def main():
         scale = args.s + (n.bit_length() - 1 if args.weak else 0)
         ec = generation.rmat(scale=scale, avg_degree=args.e, seed=42)
         # the FLAGSHIP distributed path: sharded TILE_CSR, one dst-range shard
-        # per device, routed advance per shard, full loop inside shard_map
+        # per device, tiled advance per shard, full loop inside shard_map
         sg = import_sharded(ec, n)
         mesh = make_mesh(n, 1, jax.devices()[:n])
         run = sharded.make_pr_sharded(sg, mesh, ec,

@@ -4,8 +4,8 @@ import sys
 import numpy as np
 
 from app_common import run_app
-from vectorgraphlibrary_tpu.models import scc
-from vectorgraphlibrary_tpu.utils import verify
+from vectorgraphlibrary.models import scc
+from vectorgraphlibrary.utils import verify
 
 
 def run_round(ec, graph, weights, source, cfg):

@@ -2,9 +2,9 @@
 import sys
 
 from app_common import run_app          # first: puts the repo on sys.path
-import vectorgraphlibrary_tpu as vgl
-from vectorgraphlibrary_tpu.models import sswp
-from vectorgraphlibrary_tpu.utils import verify
+import vectorgraphlibrary as vgl
+from vectorgraphlibrary.models import sswp
+from vectorgraphlibrary.utils import verify
 
 
 def run_round(ec, graph, weights, source, cfg):

@@ -2,11 +2,11 @@
 import numpy as np
 import pytest
 
-import vectorgraphlibrary_tpu as vgl
-from vectorgraphlibrary_tpu.graph.device import import_graph
-from vectorgraphlibrary_tpu.graph.edges import build_edge_array_from_host
-from vectorgraphlibrary_tpu.models import bfs, pr, sssp, common
-from vectorgraphlibrary_tpu.utils import verify
+import vectorgraphlibrary as vgl
+from vectorgraphlibrary.graph.device import import_graph
+from vectorgraphlibrary.graph.edges import build_edge_array_from_host
+from vectorgraphlibrary.models import bfs, pr, sssp, common
+from vectorgraphlibrary.utils import verify
 
 
 @pytest.fixture(scope="module")
@@ -89,7 +89,7 @@ def test_sssp_all_active_vs_oracle(setup):
 def test_sssp_partial_active_vs_oracle(setup):
     ec, g, ea = setup
     src = common.select_random_source(ec, seed=6)
-    dist, iters = sssp.vgl_dijkstra_partial_active(g, ea, src)
+    dist, iters = sssp.vgl_dijkstra_partial_device(g, ea, src)
     got = vgl.as_original_numpy(dist, g)
     want = sssp.seq_dijkstra(ec, src)
     assert verify.verify_results(got, want) == 0
@@ -155,7 +155,7 @@ def test_msbfs_many_roots_two_words(setup):
 
 def test_sssp_multi_matches_single(setup_ru):
     """Batched multi-source partial SSSP (one dispatch) == per-source runs."""
-    from vectorgraphlibrary_tpu.models import sssp as ssspm
+    from vectorgraphlibrary.models import sssp as ssspm
     ec, g, ea = setup_ru
     srcs = [common.select_random_source(ec, seed=s) for s in (1, 4, 9)]
     multi = np.asarray(ssspm.vgl_dijkstra_multi(g, ea, srcs).values)
@@ -168,7 +168,7 @@ def test_sssp_multi_matches_single(setup_ru):
 def test_cc_hybrid_matches_oracle(setup):
     """Single-chip flood-hybrid CC: oracle partition for the default hub, a
     bad hub, and the multi-hub batch."""
-    from vectorgraphlibrary_tpu.models import cc as ccm
+    from vectorgraphlibrary.models import cc as ccm
     ec, g, ea = setup
     want = ccm.seq_cc(ec)
     got, iters = ccm.vgl_cc_hybrid(g)
@@ -188,9 +188,9 @@ def test_cc_hybrid_flood_nonclosure_is_correct():
     split — an uncapped flood would freeze a strict subset of the hub's
     component at hub_label while the rest hook-mins to a smaller id. Path
     graph of 60 vertices + a separate triangle, max_flood=5."""
-    from vectorgraphlibrary_tpu.graph.device import import_graph
-    from vectorgraphlibrary_tpu.io.edges_container import EdgesContainer
-    from vectorgraphlibrary_tpu.models import cc as ccm
+    from vectorgraphlibrary.graph.device import import_graph
+    from vectorgraphlibrary.io.edges_container import EdgesContainer
+    from vectorgraphlibrary.models import cc as ccm
     n = 60
     src = np.concatenate([np.arange(n - 1), [n, n + 1, n + 2]]).astype(np.int32)
     dst = np.concatenate([np.arange(1, n), [n + 1, n + 2, n]]).astype(np.int32)
@@ -206,6 +206,6 @@ def test_sssp_partial_equals_all_active(setup_ru):
     ec, g, ea = setup_ru
     src = common.select_random_source(ec, seed=7)
     d1, _ = sssp.vgl_dijkstra_all_active(g, ea, src)
-    d2, _ = sssp.vgl_dijkstra_partial_active(g, ea, src)
+    d2, _ = sssp.vgl_dijkstra_partial_device(g, ea, src)
     np.testing.assert_allclose(vgl.as_original_numpy(d1, g),
                                vgl.as_original_numpy(d2, g), rtol=1e-5)

@@ -2,11 +2,11 @@
 import numpy as np
 import pytest
 
-import vectorgraphlibrary_tpu as vgl
-from vectorgraphlibrary_tpu.graph.device import import_graph
-from vectorgraphlibrary_tpu.graph.edges import build_edge_array_from_host
-from vectorgraphlibrary_tpu.models import cc, hits, coloring, sswp, rw, common
-from vectorgraphlibrary_tpu.utils import verify
+import vectorgraphlibrary as vgl
+from vectorgraphlibrary.graph.device import import_graph
+from vectorgraphlibrary.graph.edges import build_edge_array_from_host
+from vectorgraphlibrary.models import cc, hits, coloring, sswp, rw, common
+from vectorgraphlibrary.utils import verify
 
 
 @pytest.fixture(scope="module")
@@ -29,8 +29,8 @@ def test_cc_shiloach_vishkin(setup):
 
 def test_cc_bfs_based():
     # small graph: the BFS-based variant floods one component per host-loop round
-    from vectorgraphlibrary_tpu.io import generation
-    from vectorgraphlibrary_tpu.graph.device import import_graph
+    from vectorgraphlibrary.io import generation
+    from vectorgraphlibrary.graph.device import import_graph
     ec = generation.rmat(scale=7, avg_degree=4, seed=9)
     g = import_graph(ec)
     labels = cc.vgl_bfs_based(g)
@@ -65,8 +65,8 @@ def test_coloring_high_chromatic_clique():
     saturated-winner escape (max neighbor color + 1) must produce a VALID
     coloring without window retries (the r3 scale-18 fault was the doubled
     retry program's compile blowup)."""
-    from vectorgraphlibrary_tpu.io.edges_container import EdgesContainer
-    from vectorgraphlibrary_tpu.graph.device import import_graph
+    from vectorgraphlibrary.io.edges_container import EdgesContainer
+    from vectorgraphlibrary.graph.device import import_graph
     n = 96
     s, d = np.meshgrid(np.arange(n), np.arange(n))
     keep = s != d

@@ -3,11 +3,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import vectorgraphlibrary_tpu as vgl
-from vectorgraphlibrary_tpu.io import generation
-from vectorgraphlibrary_tpu.graph.device import import_graph
-from vectorgraphlibrary_tpu.models import scc, tc, lp, mf, gnn, common
-from vectorgraphlibrary_tpu.utils import verify
+import vectorgraphlibrary as vgl
+from vectorgraphlibrary.io import generation
+from vectorgraphlibrary.graph.device import import_graph
+from vectorgraphlibrary.models import scc, tc, lp, mf, gnn, common
+from vectorgraphlibrary.utils import verify
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +97,7 @@ def test_max_flow(tiny):
     ec = vgl.EdgesContainer(dedup.src_ids, dedup.dst_ids, dedup.vertices_count,
                             rng.integers(1, 20, dedup.edges_count).astype(
                                 np.float32))
-    g = import_graph(ec, build_route=False)
+    g = import_graph(ec)
     deg = np.bincount(ec.src_ids, minlength=ec.vertices_count)
     src = int(np.argmax(deg))
     indeg = np.bincount(ec.dst_ids, minlength=ec.vertices_count)

@@ -4,7 +4,7 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-from vectorgraphlibrary_tpu.runtime import checkpoint as ck
+from vectorgraphlibrary.runtime import checkpoint as ck
 
 
 def test_save_load_roundtrip(tmp_path):

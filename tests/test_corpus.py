@@ -3,7 +3,7 @@ documented shape, and runs an algorithm against its oracle (the reference's
 real-graph verification tier, apps/scripts/settings.py:52-86 analog)."""
 import numpy as np
 
-from vectorgraphlibrary_tpu.io import corpus
+from vectorgraphlibrary.io import corpus
 
 
 def test_bundled_graph_loads():
@@ -35,10 +35,10 @@ def test_bundled_call_graph_loads():
 
 def test_bundled_graph_runs_cc():
     _, ec = corpus.bundled_graph()
-    from vectorgraphlibrary_tpu.graph.device import import_graph
-    from vectorgraphlibrary_tpu.models import cc
-    import vectorgraphlibrary_tpu as vgl
-    from vectorgraphlibrary_tpu.utils import verify
+    from vectorgraphlibrary.graph.device import import_graph
+    from vectorgraphlibrary.models import cc
+    import vectorgraphlibrary as vgl
+    from vectorgraphlibrary.utils import verify
     g = import_graph(ec)
     labels, _ = cc.vgl_shiloach_vishkin(g)
     got = vgl.as_original_numpy(labels, g)

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from vectorgraphlibrary_tpu.io import generation
-from vectorgraphlibrary_tpu.parallel import distributed as D
-from vectorgraphlibrary_tpu.parallel.edge_shard import build_sharded_edge_graph
-from vectorgraphlibrary_tpu.parallel.mesh import make_mesh, EDGE_AXIS, VERTEX_AXIS
-from vectorgraphlibrary_tpu.models import pr, sssp, bfs
+from vectorgraphlibrary.io import generation
+from vectorgraphlibrary.parallel import distributed as D
+from vectorgraphlibrary.parallel.edge_shard import build_sharded_edge_graph
+from vectorgraphlibrary.parallel.mesh import make_mesh, EDGE_AXIS, VERTEX_AXIS
+from vectorgraphlibrary.models import pr, sssp, bfs
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +58,7 @@ def test_distributed_sssp_fixpoint_matches_scipy(mesh, ec):
     g = build_sharded_edge_graph(ecw, mesh)
     step = D.make_sssp_step(g, mesh)
     v_sh = NamedSharding(mesh, P(VERTEX_AXIS))
-    from vectorgraphlibrary_tpu.models.common import select_random_source
+    from vectorgraphlibrary.models.common import select_random_source
     src = select_random_source(ecw, seed=1)
     dist = jnp.full((g.v_pad,), jnp.inf, jnp.float32).at[src].set(0.0)
     dist = jax.device_put(dist, v_sh)
@@ -77,7 +77,7 @@ def test_distributed_bfs_levels(mesh, ec):
     g = build_sharded_edge_graph(ec, mesh)
     step = D.make_bfs_step(g, mesh)
     v_sh = NamedSharding(mesh, P(VERTEX_AXIS))
-    from vectorgraphlibrary_tpu.models.common import select_random_source
+    from vectorgraphlibrary.models.common import select_random_source
     src = select_random_source(ec, seed=2)
     INF = jnp.iinfo(jnp.int32).max
     levels = jnp.full((g.v_pad,), INF, jnp.int32).at[src].set(1)
@@ -94,16 +94,15 @@ def test_distributed_bfs_levels(mesh, ec):
 
 
 def test_collectives_merge_policies(mesh):
-    from vectorgraphlibrary_tpu.parallel import collectives as C
-    from jax.experimental.shard_map import shard_map
+    from vectorgraphlibrary.parallel import collectives as C
     n = 64
     xs = np.stack([np.random.default_rng(i).random(n).astype(np.float32)
                    for i in range(4)])
     prev = xs[0].copy()
-    f = shard_map(lambda x, p: (C.merge_all(x[0], "min"),
-                                C.merge_changed(x[0], p, "min")),
-                  mesh=mesh, in_specs=(P(EDGE_AXIS, None), P(None)),
-                  out_specs=(P(None), P(None)))
+    f = jax.shard_map(lambda x, p: (C.merge_all(x[0], "min"),
+                                    C.merge_changed(x[0], p, "min")),
+                      mesh=mesh, in_specs=(P(EDGE_AXIS, None), P(None)),
+                      out_specs=(P(None), P(None)))
     a, c = f(jnp.asarray(xs), jnp.asarray(prev))
     np.testing.assert_allclose(np.asarray(a), xs.min(axis=0), rtol=1e-6)
     want_changed = np.minimum(prev, np.where(xs != prev, xs, np.inf).min(axis=0))
@@ -113,8 +112,7 @@ def test_collectives_merge_policies(mesh):
 def test_collectives_merge_changed_add_and_max(mesh):
     """merge_changed 'add' accumulates per-device DELTAS onto prev; 'max'
     merges only entries that changed (reference mpi_exchange.hpp:146-150)."""
-    from vectorgraphlibrary_tpu.parallel import collectives as C
-    from jax.experimental.shard_map import shard_map
+    from vectorgraphlibrary.parallel import collectives as C
     n = 64
     rng = np.random.default_rng(0)
     prev = rng.random(n).astype(np.float32)
@@ -122,10 +120,10 @@ def test_collectives_merge_changed_add_and_max(mesh):
     # each device changes a disjoint slice
     for i in range(4):
         xs[i, i * 16:(i + 1) * 16] += rng.random(16).astype(np.float32)
-    f = shard_map(lambda x, p: (C.merge_changed(x[0], p, "add"),
-                                C.merge_changed(x[0], p, "max")),
-                  mesh=mesh, in_specs=(P(EDGE_AXIS, None), P(None)),
-                  out_specs=(P(None), P(None)))
+    f = jax.shard_map(lambda x, p: (C.merge_changed(x[0], p, "add"),
+                                    C.merge_changed(x[0], p, "max")),
+                      mesh=mesh, in_specs=(P(EDGE_AXIS, None), P(None)),
+                      out_specs=(P(None), P(None)))
     got_add, got_max = f(jnp.asarray(xs), jnp.asarray(prev))
     want_add = prev + (xs - prev).sum(axis=0)
     want_max = np.maximum(prev,

@@ -4,13 +4,13 @@ container dispatch, common/advance.hpp:32-111)."""
 import numpy as np
 import pytest
 
-import vectorgraphlibrary_tpu as vgl
-from vectorgraphlibrary_tpu.config import GraphFormat
-from vectorgraphlibrary_tpu.graph.device import import_graph
-from vectorgraphlibrary_tpu.graph.edges import build_edge_array_from_host
-from vectorgraphlibrary_tpu.io import generation
-from vectorgraphlibrary_tpu.models import bfs, common, pr, sssp
-from vectorgraphlibrary_tpu.utils import verify
+import vectorgraphlibrary as vgl
+from vectorgraphlibrary.config import GraphFormat
+from vectorgraphlibrary.graph.device import import_graph
+from vectorgraphlibrary.graph.edges import build_edge_array_from_host
+from vectorgraphlibrary.io import generation
+from vectorgraphlibrary.models import bfs, common, pr, sssp
+from vectorgraphlibrary.utils import verify
 
 FORMATS = [GraphFormat.EDGES_LIST, GraphFormat.CSR, GraphFormat.CSR_VG,
            GraphFormat.TILE_CSR]
@@ -27,7 +27,10 @@ def test_format_structure(ec, fmt):
     assert g.graph_format == fmt
     tiled = fmt in (GraphFormat.TILE_CSR, GraphFormat.CSR_VG)
     assert (len(g.incoming.buckets) > 0) == tiled
-    assert (g.advance_route is not None) == (fmt == GraphFormat.TILE_CSR)
+    # every format keeps the degree-sorted CSR arrays of both directions
+    for dg in (g.outgoing, g.incoming):
+        assert dg.col_idx.shape == (dg.e_pad,)
+        assert int(dg.row_ptr[-1]) == ec.edges_count
 
 
 @pytest.mark.parametrize("fmt", FORMATS)

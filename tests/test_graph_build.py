@@ -2,10 +2,10 @@
 import numpy as np
 import pytest
 
-from vectorgraphlibrary_tpu.config import DEFAULT_CONFIG
-from vectorgraphlibrary_tpu.graph.build import build_directed_csr
-from vectorgraphlibrary_tpu.graph.device import import_graph
-from vectorgraphlibrary_tpu.io import generation
+from vectorgraphlibrary.config import DEFAULT_CONFIG
+from vectorgraphlibrary.graph.build import build_directed_csr
+from vectorgraphlibrary.graph.device import import_graph
+from vectorgraphlibrary.io import generation
 
 
 @pytest.fixture(scope="module")

@@ -17,17 +17,16 @@ _WORKER = r"""
 import os, sys
 pid = int(sys.argv[1]); nproc = int(sys.argv[2])
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
-os.environ["VGL_FORCE_ROUTED"] = "1"
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.distributed.initialize(coordinator_address="127.0.0.1:%PORT%",
                            num_processes=nproc, process_id=pid)
 import numpy as np, jax.numpy as jnp
-from vectorgraphlibrary_tpu.io import generation
-from vectorgraphlibrary_tpu.parallel.shard_build import import_sharded
-from vectorgraphlibrary_tpu.parallel import sharded
-from vectorgraphlibrary_tpu.parallel.mesh import make_mesh
-from vectorgraphlibrary_tpu.models import pr as prm
+from vectorgraphlibrary.io import generation
+from vectorgraphlibrary.parallel.shard_build import import_sharded
+from vectorgraphlibrary.parallel import sharded
+from vectorgraphlibrary.parallel.mesh import make_mesh
+from vectorgraphlibrary.models import pr as prm
 
 ec = generation.rmat(scale=9, avg_degree=8, seed=3)
 n_dev = len(jax.devices())

@@ -3,11 +3,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import vectorgraphlibrary_tpu as vgl
-from vectorgraphlibrary_tpu.config import TraversalDirection
-from vectorgraphlibrary_tpu.graph import frontier as F
-from vectorgraphlibrary_tpu.graph.device import import_graph
-from vectorgraphlibrary_tpu.graph.edges import build_edge_array_from_host
+import vectorgraphlibrary as vgl
+from vectorgraphlibrary.config import TraversalDirection
+from vectorgraphlibrary.graph import frontier as F
+from vectorgraphlibrary.graph.device import import_graph
+from vectorgraphlibrary.graph.edges import build_edge_array_from_host
 
 
 @pytest.fixture(scope="module")
@@ -140,18 +140,19 @@ def test_compute_reduce_gnf(setup):
 
 
 def test_flat_tiles_int_exact_beyond_2p24():
-    """broadcast_rows_flat / group_reduce_flat must be EXACT for int32 values
-    above 2^24 (CC labels on big shards) — the f32 matmul alone would round."""
+    """group_reduce_flat must be EXACT for int32 values above 2^24 (CC labels
+    on big shards) — an f32 matmul alone would round."""
     import jax.numpy as jnp
-    from vectorgraphlibrary_tpu.ops import tiles as T
-    from vectorgraphlibrary_tpu.ops import monoid as M
+    from vectorgraphlibrary.ops import tiles as T
+    from vectorgraphlibrary.ops import monoid as M
     rng = np.random.default_rng(0)
     width, m = 8, 16                       # 16*128/8 = 256 vertex rows
     rows = m * 128 // width
-    vals = rng.integers(2**24, 2**31 - 1, rows).astype(np.int32)
-    bc = np.asarray(T.broadcast_rows_flat(jnp.asarray(vals), width, m))
-    want = np.repeat(vals, width).reshape(m, 128)
-    np.testing.assert_array_equal(bc, want)
+    labels = rng.integers(2**24, 2**31 - 1, (m, 128)).astype(np.int32)
+    red_min = np.asarray(T.group_reduce_flat(jnp.asarray(labels), width,
+                                             M.get("min"), rows))
+    np.testing.assert_array_equal(red_min,
+                                  labels.reshape(-1, width).min(axis=1))
     # add-reduce exactness: values up to 2^24 per slot, 8 slots per row
     slot_vals = rng.integers(0, 2**24, (m, 128)).astype(np.int32)
     red = np.asarray(T.group_reduce_flat(jnp.asarray(slot_vals), width,

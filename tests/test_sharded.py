@@ -1,7 +1,7 @@
 """Sharded flagship container (ShardedTileGraph): correctness on the 8-device
 virtual CPU mesh (shard_map path) and the single-chip sequential path (scan).
 
-The sharded graph runs the SAME routed tiled advance per shard; these tests pin
+The sharded graph runs the SAME tiled advance per shard; these tests pin
 per-algorithm equality with the sequential oracles, matching the reference's
 MPI -check story (SURVEY.md §4.5)."""
 import numpy as np
@@ -9,14 +9,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from vectorgraphlibrary_tpu.io import generation
-from vectorgraphlibrary_tpu.models import common, pr as prm, bfs as bfsm, \
+from vectorgraphlibrary.io import generation
+from vectorgraphlibrary.models import common, pr as prm, bfs as bfsm, \
     sssp as ssspm, cc as ccm, hits as hitsm
-from vectorgraphlibrary_tpu.parallel.shard_build import (import_sharded,
+from vectorgraphlibrary.parallel.shard_build import (import_sharded,
                                                          shard_edge_values)
-from vectorgraphlibrary_tpu.parallel import sharded
-from vectorgraphlibrary_tpu.parallel.mesh import make_mesh
-from vectorgraphlibrary_tpu.utils import verify
+from vectorgraphlibrary.parallel import sharded
+from vectorgraphlibrary.parallel.mesh import make_mesh
+from vectorgraphlibrary.utils import verify
 
 
 @pytest.fixture(scope="module")
@@ -36,7 +36,7 @@ def test_stacked_static_shapes(setup):
     assert int(sg.edges_per_shard.sum()) == ec.edges_count
     # per-shard view reconstructs a usable graph
     g0 = sg.shard(0)
-    assert g0.v == ec.vertices_count and g0.advance_route.has_flags
+    assert g0.v == ec.vertices_count
 
 
 def test_sharded_pagerank_matches_oracle(setup):
@@ -115,48 +115,39 @@ def test_sharded_nonuniform_shard_count():
 
 
 @pytest.fixture(scope="module")
-def slim_setup():
+def two_shard_setup():
     ec = generation.rmat(scale=10, avg_degree=8, seed=5, weighted=False)
-    sg = import_sharded(ec, 2, slim=True)
+    sg = import_sharded(ec, 2)
     return ec, sg
 
 
-def test_slim_shards_strip_heavy_leaves(slim_setup):
-    ec, sg = slim_setup
-    g0 = sg.shard(0)
-    assert g0.outgoing.col_idx is None and g0.incoming.row_ptr is None
-    assert all(b.adj is None for b in g0.outgoing.buckets)
-    assert g0.advance_route.has_flags
-
-
-def test_slim_pagerank_scan_matches_oracle(slim_setup):
-    # slim shards run the fused value-pull only (interpret mode forces it on
-    # CPU, matching what the TPU executes) — the RMAT-24 scale path
-    ec, sg = slim_setup
+def test_scan_pagerank_matches_oracle(two_shard_setup):
+    # sequential-shard (lax.scan) PageRank on one device
+    ec, sg = two_shard_setup
     got = np.asarray(sharded.pagerank_sharded_scan(
         sg, ec, max_iterations=25))[:sg.v]
     want = prm.seq_page_rank(ec, max_iterations=25, use_convergence=False)
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 
-def test_slim_hits_scan_matches_oracle(slim_setup):
-    ec, sg = slim_setup
+def test_scan_hits_matches_oracle(two_shard_setup):
+    ec, sg = two_shard_setup
     auth, hub = sharded.hits_sharded_scan(sg, 10)
     wa, wh = hitsm.seq_hits(ec, iterations=10)
     np.testing.assert_allclose(np.asarray(auth)[:sg.v], wa, atol=1e-5)
     np.testing.assert_allclose(np.asarray(hub)[:sg.v], wh, atol=1e-5)
 
 
-def test_slim_bfs_scan_matches_oracle(slim_setup):
-    ec, sg = slim_setup
+def test_scan_bfs_matches_oracle(two_shard_setup):
+    ec, sg = two_shard_setup
     src = common.select_random_source(ec, seed=2)
     got = np.asarray(sharded.bfs_sharded_scan(sg, jnp.int32(src)))[:sg.v]
     want = bfsm.seq_top_down(ec, src)
     np.testing.assert_array_equal(got, want)
 
 
-def test_slim_cc_scan_matches_oracle(slim_setup):
-    ec, sg = slim_setup
+def test_scan_cc_matches_oracle(two_shard_setup):
+    ec, sg = two_shard_setup
     labels, iters = sharded.cc_sharded_scan(sg)
     got = np.asarray(labels)[:sg.v]
     want = ccm.seq_cc(ec)
@@ -164,10 +155,10 @@ def test_slim_cc_scan_matches_oracle(slim_setup):
     assert int(iters) >= 2
 
 
-def test_slim_msbfs_scan_matches_oracle(slim_setup):
-    """Bit-parallel MS-BFS on slim shards: every packed root's levels equal
-    the sequential oracle (the scale-24 bfs_do protocol)."""
-    ec, sg = slim_setup
+def test_scan_msbfs_matches_oracle(two_shard_setup):
+    """Bit-parallel MS-BFS over sequential shards: every packed root's
+    levels equal the sequential oracle."""
+    ec, sg = two_shard_setup
     rng = np.random.default_rng(9)
     roots_np = np.array([common.select_random_source(ec, seed=int(s))
                          for s in rng.integers(0, 1000, 32)], np.int32)
@@ -178,11 +169,11 @@ def test_slim_msbfs_scan_matches_oracle(slim_setup):
         np.testing.assert_array_equal(lv[r, :sg.v].astype(np.int32), want)
 
 
-def test_slim_cc_hybrid_scan_matches_oracle(slim_setup):
+def test_scan_cc_hybrid_matches_oracle(two_shard_setup):
     """Flood-hybrid CC equals the oracle partition for a good hub AND for a
     deliberately bad hub (an arbitrary vertex — correctness must not depend
     on the hub landing in the largest component)."""
-    ec, sg = slim_setup
+    ec, sg = two_shard_setup
     want = ccm.seq_cc(ec)
     outdeg = np.bincount(ec.src_ids, minlength=sg.v)
     for hub in (int(np.argmax(outdeg)), 17):
@@ -192,43 +183,9 @@ def test_slim_cc_hybrid_scan_matches_oracle(slim_setup):
         assert int(fl) >= 1
 
 
-def test_slim_sssp_scan_hash_weights(slim_setup):
-    """SSSP over slim shards with on-device slot-hash weights: (a) partial ==
-    all-active, (b) equals the sequential oracle run on the SAME weights,
-    recovered on the host via the slot map."""
-    from vectorgraphlibrary_tpu.graph.route_build import slot_map
-    ec, sg = slim_setup
-    src = common.select_random_source(ec, seed=4)
-    dist_p, it_p = sharded.sssp_sharded_scan_hash(sg, jnp.int32(src))
-    dist_a, _ = sharded.sssp_sharded_scan_hash(sg, jnp.int32(src),
-                                               partial=False)
-    np.testing.assert_allclose(np.asarray(dist_p), np.asarray(dist_a),
-                               rtol=1e-6)
-    assert int(it_p) >= 2
-
-    # rebuild the exact per-edge weights the device hashed: re-import the
-    # same container non-slim to recover each shard's host CSR + slot map
-    hosts = []
-    sg_full = import_sharded(ec, sg.n_shards, _host_out=hosts,
-                             keep_edge_slots=True)
-    fn = sharded.slot_hash_weight_fn(sg.stacked.advance_route.n)
-    w_coo = np.zeros(ec.edges_count, np.float32)
-    shard_id = ec.dst_ids % sg.n_shards
-    for s in range(sg.n_shards):
-        wslots = np.asarray(fn(jnp.int32(s)).slot_flat)
-        h_out, h_in = hosts[s]
-        m, _ = slot_map(h_in)
-        w_coo[shard_id == s] = wslots[m]
-    import dataclasses as _dc
-    ec_w = _dc.replace(ec, weights=w_coo)
-    want = ssspm.seq_dijkstra(ec_w, src)
-    got = np.asarray(dist_p)[:sg.v]
-    assert verify.verify_results(got, want) == 0
-
-
-def test_sharded_persistence_roundtrip(tmp_path, slim_setup):
-    from vectorgraphlibrary_tpu.graph import persistence
-    ec, sg = slim_setup
+def test_sharded_persistence_roundtrip(tmp_path, two_shard_setup):
+    from vectorgraphlibrary.graph import persistence
+    ec, sg = two_shard_setup
     prefix = str(tmp_path / "sgraph")
     persistence.save_sharded_graph(sg, prefix)
     sg2 = persistence.load_sharded_graph(prefix)

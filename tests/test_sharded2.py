@@ -13,16 +13,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
-from vectorgraphlibrary_tpu.io import generation
-from vectorgraphlibrary_tpu.models import common, bfs as bfsm, sssp as ssspm
-from vectorgraphlibrary_tpu.models import gnn
-from vectorgraphlibrary_tpu.parallel.shard_build import (import_sharded,
+from vectorgraphlibrary.io import generation
+from vectorgraphlibrary.models import common, bfs as bfsm, sssp as ssspm
+from vectorgraphlibrary.models import gnn
+from vectorgraphlibrary.parallel.shard_build import (import_sharded,
                                                          shard_edge_values)
-from vectorgraphlibrary_tpu.parallel import sharded, collectives as C
-from vectorgraphlibrary_tpu.parallel.mesh import make_mesh, EDGE_AXIS
-from vectorgraphlibrary_tpu.utils import verify
+from vectorgraphlibrary.parallel import sharded, collectives as C
+from vectorgraphlibrary.parallel.mesh import make_mesh, EDGE_AXIS
+from vectorgraphlibrary.utils import verify
 
 
 @pytest.fixture(scope="module")
@@ -39,8 +38,8 @@ def setup():
 # ---------------------------------------------------------------------------
 
 def _run_exchange(mesh, fn, xs, prev):
-    body = shard_map(fn, mesh=mesh, in_specs=(P(EDGE_AXIS), P()),
-                     out_specs=P(), check_rep=False)
+    body = jax.shard_map(fn, mesh=mesh, in_specs=(P(EDGE_AXIS), P()),
+                         out_specs=P(), check_vma=False)
     return np.asarray(jax.jit(body)(xs, prev))
 
 
@@ -167,7 +166,7 @@ def test_sharded_do_bfs_matches_oracle(setup):
 
 def test_sharded_sage_loss_matches_single_graph(setup):
     ec, sg, hosts, mesh = setup
-    from vectorgraphlibrary_tpu.graph.device import import_graph
+    from vectorgraphlibrary.graph.device import import_graph
     rng = np.random.default_rng(0)
     v, v_pad, fdim, classes = sg.v, sg.v_pad, 8, 4
     feats = jnp.asarray(rng.normal(size=(v_pad, fdim)).astype(np.float32))
@@ -239,7 +238,7 @@ def test_msbfs_sharded_matches_scan(setup):
 
 
 def test_cc_hybrid_sharded_matches_scan(setup):
-    from vectorgraphlibrary_tpu.models import cc as ccm
+    from vectorgraphlibrary.models import cc as ccm
     ec, sg, hosts, mesh = setup
     outdeg = np.bincount(ec.src_ids, minlength=sg.v)
     fn = sharded.make_cc_hybrid_sharded(sg, mesh)
